@@ -1,14 +1,14 @@
 // Native multicore BVH builder (binned SAH).
 //
 // The reference's performance-critical host component is its parallel BVH
-// build (/root/reference/src/bvh.rs:142, BVHf::build_par via the external
+// build (src/bvh.rs:142, BVHf::build_par via the external
 // `bvh` crate). This is our native equivalent: a C++ binned-SAH top-down
 // builder with a work-stealing task pool over subtree ranges, producing the
 // same flattened node arrays as the NumPy builder in
-// gpu_raytracer_tpu/models/bvh.py (root = node 0, child sentinel -1,
+// gpu_raytracer/models/bvh.py (root = node 0, child sentinel -1,
 // triangles re-ordered into contiguous leaf ranges).
 //
-// C ABI, loaded via ctypes (gpu_raytracer_tpu/models/bvh_native.py).
+// C ABI, loaded via ctypes (gpu_raytracer/models/bvh_native.py).
 
 #include <atomic>
 #include <algorithm>
@@ -280,123 +280,4 @@ extern "C" int64_t bvh_build(
   if (b.overflow.load()) return -2;
   *max_depth = b.max_depth.load();
   return b.n_nodes.load();
-}
-
-// ---- wide (BVH4/BVH8) collapse ---------------------------------------------
-//
-// Greedy surface-area collapse of the binary tree to `width`-wide nodes —
-// the native twin of gpu_raytracer_tpu/models/bvh.py::collapse4 (identical
-// greedy choice and stable child ordering, so outputs are bit-equal and the
-// Python implementation doubles as the test oracle). Sequential: the
-// collapse touches each internal node once (trivially fast next to the SAH
-// build itself).
-
-extern "C" int64_t bvh_collapse_wide(
-    const int32_t* left, const int32_t* right, const int32_t* tri_start,
-    const int32_t* tri_count, const float* node_min, const float* node_max,
-    int64_t n, int32_t width, int32_t* q_child, int32_t* q_leafc,
-    float* q_min, float* q_max, int32_t* q_axis, int32_t* q_src) {
-  if (n <= 0 || width < 2 || width > 16) return -1;
-  const float kFar = 1e30f;
-  auto leaf = [&](int32_t c) { return left[c] < 0; };
-  auto sa = [&](int32_t c) {
-    float dx = std::max(node_max[3 * c] - node_min[3 * c], 0.f);
-    float dy = std::max(node_max[3 * c + 1] - node_min[3 * c + 1], 0.f);
-    float dz = std::max(node_max[3 * c + 2] - node_min[3 * c + 2], 0.f);
-    return dx * dy + dy * dz + dz * dx;
-  };
-
-  std::vector<int32_t> queue;
-  std::vector<int32_t> qid(n, -1);
-  int64_t emitted = 0;
-  auto emit_slot = [&](int64_t node, int i, int32_t ch, int32_t lc,
-                       const float* mn, const float* mx, int32_t src) {
-    q_child[node * width + i] = ch;
-    q_leafc[node * width + i] = lc;
-    q_src[node * width + i] = src;  // binary node behind the slot (refit)
-    for (int k = 0; k < 3; ++k) {
-      q_min[(node * width + i) * 3 + k] = mn ? mn[k] : kFar;
-      q_max[(node * width + i) * 3 + k] = mx ? mx[k] : kFar;
-    }
-  };
-  auto emit_empty = [&](int64_t node, int i) {
-    emit_slot(node, i, -1, 0, nullptr, nullptr, -1);
-  };
-
-  if (leaf(0)) {
-    for (int i = 0; i < width; ++i) emit_empty(0, i);
-    if (tri_count[0] > 0)
-      emit_slot(0, 0, tri_start[0], tri_count[0], node_min, node_max, 0);
-    q_axis[0] = 0;
-    return 1;
-  }
-
-  queue.push_back(0);
-  qid[0] = 0;
-  int64_t next_id = 1;
-  std::vector<int32_t> cand_buf(width + 1);
-  for (size_t qi = 0; qi < queue.size(); ++qi) {
-    int32_t b = queue[qi];
-    int32_t* cand = cand_buf.data();
-    cand[0] = left[b];
-    cand[1] = right[b];
-    int nc = 2;
-    while (nc < width) {
-      int grow = -1;
-      float grow_sa = -1.f;
-      for (int j = 0; j < nc; ++j)
-        if (!leaf(cand[j]) && sa(cand[j]) > grow_sa) {
-          grow = j;
-          grow_sa = sa(cand[j]);
-        }
-      if (grow < 0) break;
-      int32_t c = cand[grow];
-      // pop + append two children (preserve relative order of the rest)
-      for (int j = grow; j < nc - 1; ++j) cand[j] = cand[j + 1];
-      --nc;
-      cand[nc++] = left[c];
-      cand[nc++] = right[c];
-    }
-    // parent's longest axis; stable sort children by centroid along it
-    float ex = node_max[3 * b] - node_min[3 * b];
-    float ey = node_max[3 * b + 1] - node_min[3 * b + 1];
-    float ez = node_max[3 * b + 2] - node_min[3 * b + 2];
-    int ax = (ex >= ey && ex >= ez) ? 0 : (ey >= ez ? 1 : 2);
-    std::stable_sort(cand, cand + nc, [&](int32_t a, int32_t c2) {
-      return node_min[3 * a + ax] + node_max[3 * a + ax] <
-             node_min[3 * c2 + ax] + node_max[3 * c2 + ax];
-    });
-    int out = 0;
-    for (int j = 0; j < nc; ++j) {
-      int32_t c = cand[j];
-      if (leaf(c)) {
-        if (tri_count[c] > 0)
-          emit_slot(qid[b], out++, tri_start[c], tri_count[c],
-                    node_min + 3 * c, node_max + 3 * c, c);
-      } else {
-        if (qid[c] < 0) {
-          if (next_id >= n) return -1;  // cap (never hit: Q <= internal+1)
-          qid[c] = (int32_t)next_id++;
-          queue.push_back(c);
-        }
-        emit_slot(qid[b], out++, qid[c], 0, node_min + 3 * c,
-                  node_max + 3 * c, c);
-      }
-    }
-    for (; out < width; ++out) emit_empty(qid[b], out);
-    q_axis[qid[b]] = ax;
-    emitted = std::max<int64_t>(emitted, qid[b] + 1);
-  }
-  return next_id;
-}
-
-// Backward-compatible 4-wide entry point.
-extern "C" int64_t bvh_collapse4(
-    const int32_t* left, const int32_t* right, const int32_t* tri_start,
-    const int32_t* tri_count, const float* node_min, const float* node_max,
-    int64_t n, int32_t* q_child, int32_t* q_leafc, float* q_min, float* q_max,
-    int32_t* q_axis, int32_t* q_src) {
-  return bvh_collapse_wide(left, right, tri_start, tri_count, node_min,
-                           node_max, n, 4, q_child, q_leafc, q_min, q_max,
-                           q_axis, q_src);
 }

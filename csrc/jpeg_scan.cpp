@@ -5,7 +5,7 @@
 // (an inherently serial bitstream), which costs seconds per megapixel
 // texture in pure Python — the data-loader hot spot when a glTF asset pack
 // ships dozens of JPEG textures. The reference decodes images natively via
-// the Rust `image` crate (/root/reference/src/gltf_loader.rs:128-184); this
+// the Rust `image` crate (src/gltf_loader.rs:128-184); this
 // is the equivalent native component. Marker parsing, dequantisation,
 // zig-zag, IDCT and color conversion stay in (vectorised) Python — only the
 // serial scan loop moves here, mirroring jpeg.py::_block_first /

@@ -1,7 +1,7 @@
 """Adaptive (variance-guided) path tracing — engine/adaptive.py.
 
 The reference spends its progressive budget uniformly (tile round-robin,
-/root/reference/src/compute.rs); adaptive allocation is a TPU-side
+src/compute.rs); adaptive allocation is an
 extension. These tests pin: round-robin warmup coverage, error-guided
 concentration after warmup, per-pixel-count mean correctness, checkpoint
 round-trip, and the denoised reconstruction under heterogeneous counts.
@@ -10,8 +10,8 @@ round-trip, and the denoised reconstruction under heterogeneous counts.
 import numpy as np
 import pytest
 
-from gpu_raytracer_tpu.engine.adaptive import TILE_PX, AdaptivePathTracer
-from gpu_raytracer_tpu.engine.pathtracer import PathTracer
+from gpu_raytracer.engine.adaptive import TILE_PX, AdaptivePathTracer
+from gpu_raytracer.engine.pathtracer import PathTracer
 
 
 def _make(default_scene, K=2, **kw):

@@ -3,13 +3,13 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gpu_raytracer_tpu.models.bvh import build_bvh, validate_bvh, LEAF
-from gpu_raytracer_tpu.models.geometry import Mesh, Spheres
-from gpu_raytracer_tpu.models.material import MaterialBuilder
-from gpu_raytracer_tpu.models.light import LightBuilder
-from gpu_raytracer_tpu.models.camera import Camera
-from gpu_raytracer_tpu.models.scene import prepare_scene
-from gpu_raytracer_tpu.ops.trace import trace
+from gpu_raytracer.models.bvh import build_bvh, validate_bvh, LEAF
+from gpu_raytracer.models.geometry import Mesh, Spheres
+from gpu_raytracer.models.material import MaterialBuilder
+from gpu_raytracer.models.light import LightBuilder
+from gpu_raytracer.models.camera import Camera
+from gpu_raytracer.models.scene import prepare_scene
+from gpu_raytracer.ops.trace import trace
 
 
 def _tri_soup(rng, n, spread=10.0, size=0.5):
@@ -80,7 +80,7 @@ def test_traversal_matches_brute_force(rng):
 
 
 def test_threaded_equals_stack_traversal(rng):
-    from gpu_raytracer_tpu.ops.bvh_traverse import (
+    from gpu_raytracer.ops.bvh_traverse import (
         bvh_traverse, bvh_traverse_threaded,
     )
 
@@ -101,7 +101,7 @@ def test_threaded_equals_stack_traversal(rng):
 
 
 def test_compute_links_invariants(rng):
-    from gpu_raytracer_tpu.models.bvh import compute_links
+    from gpu_raytracer.models.bvh import compute_links
 
     verts, idx = _tri_soup(rng, 100)
     res = build_bvh(verts, idx, leaf_size=4)
@@ -126,7 +126,7 @@ def test_compute_links_invariants(rng):
 
 
 def test_occlusion_matches_closest(rng):
-    from gpu_raytracer_tpu.ops.trace import occluded
+    from gpu_raytracer.ops.trace import occluded
 
     scene = _scene_from_soup(rng, 200)
     n = 256
@@ -165,92 +165,13 @@ def test_degenerate_scene_coincident_triangles(rng):
                                rtol=1e-5)
 
 
-def test_collapse4_native_matches_python():
-    """The C++ bvh_collapse4 implements the identical greedy collapse —
-    bit-equal outputs on a real build (the Python version is the oracle)."""
-    import numpy as np
-    from gpu_raytracer_tpu.models.bvh import build_bvh, collapse4
-    from gpu_raytracer_tpu.models.bvh_native import collapse4_native
-
-    rng = np.random.default_rng(4)
-    verts = rng.uniform(-5, 5, (3000, 3)).astype(np.float32)
-    idx = rng.integers(0, 3000, (2000, 3)).astype(np.uint32)
-    res = build_bvh(verts, idx, leaf_size=8, use_native=False)
-    want = collapse4(res.left, res.right, res.tri_start, res.tri_count,
-                     res.node_min, res.node_max)
-    got = collapse4_native(res.left, res.right, res.tri_start, res.tri_count,
-                           res.node_min, res.node_max)
-    assert got is not None, "native library missing (csrc make failed?)"
-    for g, w, name in zip(got, want,
-                          ("child", "leafc", "min", "max", "axis")):
-        np.testing.assert_array_equal(g, w, err_msg=name)
-
-
-def test_collapse_wide8_native_matches_python_and_covers_leaves():
-    """Width-8 collapse (config.bvh_width=8): the C++ bvh_collapse_wide and
-    the Python oracle are bit-equal, and the 8-wide overlay references every
-    aligned leaf range exactly once (no drops, no duplicates)."""
-    import numpy as np
-    from gpu_raytracer_tpu.models.bvh import build_bvh, collapse4
-    from gpu_raytracer_tpu.models.bvh_native import collapse4_native
-
-    rng = np.random.default_rng(4)
-    verts = rng.uniform(-5, 5, (3000, 3)).astype(np.float32)
-    idx = rng.integers(0, 3000, (2000, 3)).astype(np.uint32)
-    res = build_bvh(verts, idx, leaf_size=8, use_native=False)
-    want = collapse4(res.left, res.right, res.tri_start, res.tri_count,
-                     res.node_min, res.node_max, width=8)
-    got = collapse4_native(res.left, res.right, res.tri_start, res.tri_count,
-                           res.node_min, res.node_max, width=8)
-    assert got is not None, "native library missing (csrc make failed?)"
-    for g, w, name in zip(got, want,
-                          ("child", "leafc", "min", "max", "axis", "src")):
-        np.testing.assert_array_equal(g, w, err_msg=name)
-
-    q_child, q_leafc = np.asarray(want[0]), np.asarray(want[1])
-    assert q_child.shape[1] == 8
-    covered = []
-    for i in range(q_child.shape[0]):
-        for c in range(8):
-            if q_leafc[i, c] > 0:
-                covered.extend(range(int(q_child[i, c]),
-                                     int(q_child[i, c]) + int(q_leafc[i, c])))
-    covered = np.sort(np.asarray(covered))
-    total = int(np.asarray(res.tri_count)[np.asarray(res.left) < 0].sum())
-    assert covered.shape[0] == total
-    np.testing.assert_array_equal(covered, np.unique(covered))
-
-
-
-def test_align_leaves_first_fit_packing():
-    """First-fit row packing: leaves share 8-slot rows without straddling,
-    every triangle appears once, expansion is small."""
-    import numpy as np
-    from gpu_raytracer_tpu.models.bvh import align_leaves, build_bvh
-
-    rng = np.random.default_rng(9)
-    verts = rng.uniform(-5, 5, (4000, 3)).astype(np.float32)
-    idx = rng.integers(0, 4000, (3000, 3)).astype(np.uint32)
-    res = build_bvh(verts, idx, leaf_size=8, use_native=False)
-    packed = align_leaves(res, 8)
-    assert packed.tri_order.shape[0] % 8 == 0
-    assert packed.tri_order.shape[0] < 3000 * 1.25  # was ~1.5x one-row-per-leaf
-    keep = packed.tri_order[packed.tri_order >= 0]
-    assert sorted(keep.tolist()) == list(range(3000))
-    leaves = packed.left < 0
-    st = packed.tri_start[leaves]
-    ct = packed.tri_count[leaves]
-    # no leaf straddles a row boundary
-    assert ((st // 8) == ((st + np.maximum(ct, 1) - 1) // 8)).all()
-
-
 def test_spatial_splits_build_and_parity():
-    """SBVH chopped spatial splits (VERDICT r3 #2 candidate): duplicated
+    """SBVH chopped spatial splits: duplicated
     clipped references on spanning geometry, full coverage, and an
     identical rendered image."""
-    from gpu_raytracer_tpu import RaytracerConfig, render_image
-    from gpu_raytracer_tpu.models.bvh import build_bvh_spatial, validate_bvh
-    from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene
+    from gpu_raytracer import RaytracerConfig, render_image
+    from gpu_raytracer.models.bvh import build_bvh_spatial, validate_bvh
+    from gpu_raytracer.utils.procgen import make_courtyard_scene
 
     rng = np.random.default_rng(3)
     # long thin diagonal triangles spanning many cells + a cluster of small
@@ -296,7 +217,7 @@ def test_spatial_splits_all_straddle_degenerate_covers():
     ref bounds first — the former order clipped rmax in place and then
     discarded the right-side copies, leaving leaf boxes that under-cover
     their triangles (silent missed intersections)."""
-    from gpu_raytracer_tpu.models.bvh import build_bvh_spatial
+    from gpu_raytracer.models.bvh import build_bvh_spatial
 
     # 12 identical-centroid triangles spanning x in [0, 16]: the object
     # split is degenerate (all centroids equal) and every ref straddles
@@ -349,7 +270,7 @@ def test_spatial_splits_flat_ref_on_plane_not_duplicated_in_place():
     in BOTH children as the same mutable ref record (left_only/right_only
     overlap): total ref placements stay consistent and every triangle stays
     covered by the union of its leaf boxes."""
-    from gpu_raytracer_tpu.models.bvh import build_bvh_spatial
+    from gpu_raytracer.models.bvh import build_bvh_spatial
 
     rng = np.random.default_rng(11)
     # long triangles spanning x in [0,16] force spatial splits at clean

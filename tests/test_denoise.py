@@ -1,6 +1,6 @@
 """Edge-avoiding à-trous denoiser (ops/denoise.py) — an addition beyond
 the reference (it ships no reconstruction filter; its wavefront path
-tracer is a stub, /root/reference/src/compute.rs:365-553).
+tracer is a stub, src/compute.rs:365-553).
 
 Property tests on synthetic G-buffers (noise shrinks on flat regions,
 geometric edges and albedo detail survive, sky never bleeds) plus an
@@ -10,7 +10,7 @@ end-to-end PathTracer.denoised_image run on the default scene.
 import numpy as np
 import jax.numpy as jnp
 
-from gpu_raytracer_tpu.ops.denoise import atrous_denoise
+from gpu_raytracer.ops.denoise import atrous_denoise
 
 
 def _flat_gbuffer(h, w):
@@ -124,7 +124,7 @@ def test_sky_does_not_bleed():
 def test_pathtracer_denoised_image_end_to_end(default_scene):
     """denoised_image on the default scene: right shape, finite, and
     closer to a higher-spp reference than the raw accumulation."""
-    from gpu_raytracer_tpu.engine.pathtracer import PathTracer
+    from gpu_raytracer.engine.pathtracer import PathTracer
 
     w = h = 32
     pt = PathTracer(default_scene, w, h, shadows=False, seed=3)
@@ -144,7 +144,7 @@ def test_pathtracer_denoised_image_end_to_end(default_scene):
 
 
 def test_gbuffer_shapes_and_miss_convention(default_scene):
-    from gpu_raytracer_tpu.engine.pathtracer import PathTracer
+    from gpu_raytracer.engine.pathtracer import PathTracer
 
     pt = PathTracer(default_scene, 24, 16, shadows=False)
     normal, depth, albedo = pt.gbuffer()

@@ -1,10 +1,10 @@
 """f16 packing semantics — parity with the reference's half-packed fields
-(/root/reference/shared/src/lib.rs:247-312, shader/src/material.rs:26-38)."""
+(shared/src/lib.rs:247-312, shader/src/material.rs:26-38)."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from gpu_raytracer_tpu.ops.f16 import (
+from gpu_raytracer.ops.f16 import (
     f16_roundtrip, pack_f16_pair, unpack_f16_high, unpack_f16_low,
     unpack_f16_pair_host,
 )

@@ -5,11 +5,11 @@ import json
 
 import numpy as np
 
-from gpu_raytracer_tpu.models.gltf import (
+from gpu_raytracer.models.gltf import (
     GltfError, GltfLoader, decode_png, load_gltf, scene_from_gltf,
     scene_from_gltf_or_default,
 )
-from gpu_raytracer_tpu.ops.f16 import unpack_f16_pair_host
+from gpu_raytracer.ops.f16 import unpack_f16_pair_host
 from gltf_fixtures import cornell_box_gltf, to_glb, write_gltf
 
 
@@ -129,9 +129,9 @@ def test_material_extensions(tmp_path):
 
 def test_cornell_render_matches_oracle(tmp_path):
     """BASELINE config 1: Cornell glTF, primary rays + flat shading, vs oracle."""
-    from gpu_raytracer_tpu import render_image
-    from gpu_raytracer_tpu.reference import cpu_tracer as oracle
-    from gpu_raytracer_tpu.utils.image import rmse
+    from gpu_raytracer import render_image
+    from gpu_raytracer.reference import cpu_tracer as oracle
+    from gpu_raytracer.utils.image import rmse
 
     path = write_gltf(tmp_path / "cornell.gltf", cornell_box_gltf())
     scene = scene_from_gltf(path)
@@ -141,7 +141,7 @@ def test_cornell_render_matches_oracle(tmp_path):
     # geometry, not a correctness signal. A generic viewpoint makes every
     # inclusion test robust.
     import jax.numpy as jnp
-    from gpu_raytracer_tpu.utils.pytree import replace
+    from gpu_raytracer.utils.pytree import replace
     cam = scene.camera
     scene = scene.with_camera(replace(
         cam, position=cam.position + jnp.asarray([0.0137, 0.0071, 0.0043],
@@ -176,7 +176,7 @@ def test_scene_selection_errors(tmp_path):
 
 
 def test_png_roundtrip(tmp_path):
-    from gpu_raytracer_tpu.utils.image import write_png
+    from gpu_raytracer.utils.image import write_png
 
     img = (np.random.default_rng(0).uniform(0, 255, (7, 5, 3))).astype(np.uint8)
     p = tmp_path / "t.png"
@@ -199,9 +199,8 @@ def _minimal_image_doc(uri):
 def test_external_image_uri(tmp_path):
     """External `uri: textures/foo.png` files load relative to the asset —
     the reference resolves these through gltf::import
-    (/root/reference/src/gltf_loader.rs:55-63); round 1 substituted a silent
-    white placeholder (VERDICT missing #2)."""
-    from gpu_raytracer_tpu.utils.image import write_png
+    (src/gltf_loader.rs:55-63), not a silent white placeholder."""
+    from gpu_raytracer.utils.image import write_png
 
     (tmp_path / "textures").mkdir()
     img = (np.random.default_rng(3).uniform(0, 255, (8, 6, 3))).astype(np.uint8)
@@ -240,7 +239,7 @@ def test_jpeg_texture(tmp_path):
 
 def test_unsupported_image_warns_loudly(tmp_path, capsys):
     """A bad image must NOT fail the load, must leave a white placeholder,
-    and must say so out loud (VERDICT r1: the placeholder was silent)."""
+    and must say so out loud (a silent placeholder hides the fault)."""
     (tmp_path / "t.bin").write_bytes(b"not an image at all")
     path = write_gltf(tmp_path / "scene.gltf", _minimal_image_doc("t.bin"))
     loaded = load_gltf(path)
@@ -349,7 +348,7 @@ def test_gray_subbyte_png(tmp_path):
 
 
 def test_color_key_trns_png():
-    """ADVICE r3: a tRNS color key on grayscale/RGB PNGs (color types 0/2)
+    """A tRNS color key on grayscale/RGB PNGs (color types 0/2)
     must decode transparent where the pixel matches the key — the
     reference's `image` crate honors it (gltf_loader.rs:128-163). Keys are
     big-endian u16 per channel at the source bit depth."""

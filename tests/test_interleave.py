@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gpu_raytracer_tpu import build_default_scene
-from gpu_raytracer_tpu.engine.pathtracer import PathTracer
-from gpu_raytracer_tpu.engine.viewer import Viewer
+from gpu_raytracer import build_default_scene
+from gpu_raytracer.engine.pathtracer import PathTracer
+from gpu_raytracer.engine.viewer import Viewer
 
 
 W, H = 64, 64
@@ -83,7 +83,7 @@ def test_interleaved_mean_matches_full_mean(scene):
 
 
 def test_viewer_fly_interleave_quality_bounded(scene):
-    """VERDICT r4 #2 quality bound: the interleaved fly pipeline (warp +
+    """Quality bound: the interleaved fly pipeline (warp +
     1/m sampling + denoise) must stay close to the FULL fly pipeline on
     the same camera path. Threshold: relative MSE < 0.05 between the two
     presented (denoised f32) frames after a short fly."""

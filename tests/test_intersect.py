@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gpu_raytracer_tpu.ops.intersect import (
+from gpu_raytracer.ops.intersect import (
     MISS_T, aabb_intersect, sphere_intersect, triangle_intersect,
 )
-from gpu_raytracer_tpu.reference import cpu_tracer as oracle
+from gpu_raytracer.reference import cpu_tracer as oracle
 
 
 def _rand_rays(rng, n):

@@ -1,13 +1,13 @@
 """Mip pyramid atlases (models/geometry.py::Textures mips) + per-lane
-nearest-mip LOD selection in both samplers (VERDICT r2 #5: real-asset
-texture sets must stay fused; minification must stop aliasing)."""
+nearest-mip LOD selection (real-asset texture sets keep their detail;
+minification must stop aliasing)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gpu_raytracer_tpu.models.geometry import Textures, _downsample2x
-from gpu_raytracer_tpu.ops.texture import sample_texture
+from gpu_raytracer.models.geometry import Textures, _downsample2x
+from gpu_raytracer.ops.texture import sample_texture
 
 
 def _img(rng, h, w):
@@ -77,25 +77,24 @@ def test_budget_rows_clamps_finest_level():
         got, want[ij[:, 1], ij[:, 0]].astype(np.float32) / 255.0, atol=1e-6)
 
 
-def test_16mtexel_scene_stays_fused():
-    """The done-criterion scene: >= 16 MTexels of source textures still
-    passes the fused-path eligibility (the budget clamp pays with detail,
-    not with the fast path)."""
-    from gpu_raytracer_tpu.ops.pallas.texshade import (
-        MAX_ATLAS_ROWS, texshade_eligible)
-    from gpu_raytracer_tpu.models.material import MaterialBuilder
-    from gpu_raytracer_tpu.models.geometry import Mesh, Spheres
-    from gpu_raytracer_tpu.models.light import LightBuilder
-    from gpu_raytracer_tpu.models.camera import Camera
-    from gpu_raytracer_tpu.models.scene import prepare_scene
-    from gpu_raytracer_tpu.ops.pallas.render import fused_render_eligible
+def test_16mtexel_scene_keeps_full_detail():
+    """The done-criterion scene: >= 16 MTexels of source textures load with
+    every level-0 texel (no atlas budget) and render through the main
+    path."""
+    from gpu_raytracer.engine.renderer import render_image
+    from gpu_raytracer.models.material import MaterialBuilder
+    from gpu_raytracer.models.geometry import Mesh, Spheres
+    from gpu_raytracer.models.light import LightBuilder
+    from gpu_raytracer.models.camera import Camera
+    from gpu_raytracer.models.scene import prepare_scene
 
     rng = np.random.default_rng(3)
     # 16 x 1024x1024 = 16.8 MTexels of source data
     imgs = [np.tile(rng.integers(0, 256, (32, 1024, 4), dtype=np.uint8),
                     (32, 1, 1)) for _ in range(16)]
-    tex = Textures.from_images(imgs, mips=12, budget_rows=MAX_ATLAS_ROWS)
-    assert tex.num_rows <= MAX_ATLAS_ROWS
+    tex = Textures.from_images(imgs, mips=12)
+    assert (np.asarray(tex.width) == 1024).all()
+    assert (np.asarray(tex.levels) == 11).all()
 
     mb = MaterialBuilder()
     for i in range(16):
@@ -113,32 +112,33 @@ def test_16mtexel_scene_stays_fused():
                             uv=uvs)
     scene = prepare_scene(Camera.default(), Spheres.from_rows([]), mesh,
                           mb.build(), lb.build(), textures=tex)
-    assert texshade_eligible(scene)
-    assert fused_render_eligible(scene)
+    img = render_image(scene, 32, 32)
+    assert np.isfinite(img).all() and img.max() > 0.0
 
 
-def test_fused_deferred_mip_parity_end_to_end():
-    """A mip-enabled textured frame through the two-phase fused path must
-    match the XLA pipeline exactly — both compute the identical footprint
-    and pick the identical nearest mip per lane."""
-    from gpu_raytracer_tpu.ops.pallas.render import (
-        fused_deferred_eligible, pallas_render_deferred)
-    from gpu_raytracer_tpu.engine.renderer import render_chunk
-    from gpu_raytracer_tpu.ops.packet_trace import tiled_pixel_order
-    from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene
+def _kernel_vs_xla(trilinear):
+    """A mip-enabled textured frame through the GPU kernel branch
+    (interpreted) and through the XLA branch: both feed the same hit
+    record to the same footprint and sampler."""
+    from kernel_branch import kernel_branch
+    from gpu_raytracer.engine.renderer import render_chunk
+    from gpu_raytracer.ops.packet_trace import tiled_pixel_order
+    from gpu_raytracer.utils.procgen import make_courtyard_scene
 
     scene = make_courtyard_scene(2000, seed=1, textured=True)
     assert scene.textures.n_levels > 1  # procgen builds mips by default
-    assert fused_deferred_eligible(scene, sphere_uv_ok=True)
     W = H = 64
     px, py = tiled_pixel_order(W, H, tile=64)
     px, py = jnp.asarray(px), jnp.asarray(py)
-    got = np.asarray(pallas_render_deferred(scene, px, py, W, H,
-                                            shadows=True, packet_size=1024,
-                                            interpret=True))
-    want = np.asarray(render_chunk(scene, px, py, W, H, shadows=True,
-                                   use_bvh=True, leaf_size=8))
-    np.testing.assert_allclose(got, want, atol=3e-4)
+    kw = dict(shadows=True, use_bvh=True, leaf_size=8, trilinear=trilinear)
+    want = np.asarray(render_chunk(scene, px, py, W, H, **kw))
+    with kernel_branch():
+        got = np.asarray(render_chunk(scene, px, py, W, H, **kw))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_kernel_mip_parity_end_to_end():
+    _kernel_vs_xla(trilinear=False)
 
 
 def test_minification_uses_coarser_level():
@@ -170,7 +170,7 @@ def test_minification_uses_coarser_level():
 
 
 def test_budget_drops_largest_chains_first():
-    """VERDICT r3 #5: the budget clamp is a PER-TEXTURE detail allocation —
+    """The budget clamp is a PER-TEXTURE detail allocation —
     the most row-expensive chain pays first, small maps keep level 0."""
     rng = np.random.default_rng(7)
     imgs = [_img(rng, 512, 512)] + [_img(rng, 32, 32) for _ in range(3)]
@@ -185,7 +185,7 @@ def test_budget_drops_largest_chains_first():
 
 
 def test_trilinear_continuous_across_level_boundary():
-    """VERDICT r3 #5: optional trilinear filtering must remove the
+    """Optional trilinear filtering must remove the
     nearest-mip jump at level boundaries. Sweep the footprint through the
     level-0/1 boundary: nearest jumps, trilinear moves smoothly and is
     monotone between the two levels' values."""
@@ -213,26 +213,9 @@ def test_trilinear_continuous_across_level_boundary():
 
 
 def test_trilinear_kernel_matches_xla():
-    """Fused deferred shade with trilinear on must match the XLA pipeline
-    with trilinear on (same footprint, same two-level lerp)."""
-    from gpu_raytracer_tpu.ops.pallas.render import (
-        fused_deferred_eligible, pallas_render_deferred)
-    from gpu_raytracer_tpu.engine.renderer import render_chunk
-    from gpu_raytracer_tpu.ops.packet_trace import tiled_pixel_order
-    from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene
-
-    scene = make_courtyard_scene(2000, seed=1, textured=True)
-    assert scene.textures.n_levels > 1
-    W = H = 64
-    px, py = tiled_pixel_order(W, H, tile=64)
-    px, py = jnp.asarray(px), jnp.asarray(py)
-    got = np.asarray(pallas_render_deferred(scene, px, py, W, H,
-                                            shadows=True, packet_size=1024,
-                                            interpret=True, trilinear=True))
-    want = np.asarray(render_chunk(scene, px, py, W, H, shadows=True,
-                                   use_bvh=True, leaf_size=8,
-                                   trilinear=True))
-    np.testing.assert_allclose(got, want, atol=3e-4)
+    """Trilinear on: the kernel branch matches the XLA pipeline (same
+    footprint, same two-level lerp)."""
+    _kernel_vs_xla(trilinear=True)
 
 
 def test_trilinear_quality_cost_psnr():

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from gpu_raytracer_tpu import build_default_scene, dedup_triangles, memory_stats
-from gpu_raytracer_tpu.models.material import MaterialBuilder, NO_TEXTURE
-from gpu_raytracer_tpu.models.light import LightBuilder
-from gpu_raytracer_tpu.ops.f16 import unpack_f16_pair_host
+from gpu_raytracer import build_default_scene, dedup_triangles, memory_stats
+from gpu_raytracer.models.material import MaterialBuilder, NO_TEXTURE
+from gpu_raytracer.models.light import LightBuilder
+from gpu_raytracer.ops.f16 import unpack_f16_pair_host
 
 
 def test_material_constructors_match_reference_semantics():
@@ -85,7 +85,7 @@ def test_default_scene_shapes(default_scene):
 
 def test_camera_controller_semantics(default_scene):
     """input.rs:49-97: yaw on XZ, clamped pitch, WASD moves."""
-    from gpu_raytracer_tpu import CameraController
+    from gpu_raytracer import CameraController
 
     cc = CameraController(default_scene.camera)
     p0 = cc.position.copy()
@@ -106,9 +106,9 @@ def test_courtyard_scene_is_a_real_workload():
     box grid must NOT merge into a solid wall around the camera (which once
     made every camera ray terminate ~5cm in and the benchmark trivial)."""
     import jax.numpy as jnp
-    from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene
-    from gpu_raytracer_tpu.ops.camera_rays import generate_rays
-    from gpu_raytracer_tpu.ops.trace import trace
+    from gpu_raytracer.utils.procgen import make_courtyard_scene
+    from gpu_raytracer.ops.camera_rays import generate_rays
+    from gpu_raytracer.ops.trace import trace
 
     scene = make_courtyard_scene(100_000, seed=0)
     W, H = 32, 18

@@ -1,10 +1,10 @@
 """Packing helpers + branchless selects — mirrors the reference's in-source
-unit tests (/root/reference/shared/src/lib.rs:1328-1456)."""
+unit tests (shared/src/lib.rs:1328-1456)."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from gpu_raytracer_tpu.utils.packing import (
+from gpu_raytracer.utils.packing import (
     F32_MAX, branchless_float_if, branchless_u32_if,
     color_channel, current_bounce_depth, max_bounce_depth, wavefront_mode,
     pack_flags, pack_tile_size, unpack_tile_size)

@@ -1,17 +1,17 @@
-"""Multi-chip sharding tests on the virtual 8-device CPU mesh."""
+"""Multi-device sharding tests on the virtual 8-device CPU mesh."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from gpu_raytracer_tpu.parallel.mesh import make_mesh
-from gpu_raytracer_tpu.parallel.shard import (
+from gpu_raytracer.parallel.mesh import make_mesh
+from gpu_raytracer.parallel.shard import (
     render_frame_multichip, render_rays_sharded, trace_geometry_sharded,
 )
-from gpu_raytracer_tpu import render_image
-from gpu_raytracer_tpu.ops.camera_rays import generate_rays, pixel_grid
-from gpu_raytracer_tpu.ops.trace import trace
+from gpu_raytracer import render_image
+from gpu_raytracer.ops.camera_rays import generate_rays, pixel_grid
+from gpu_raytracer.ops.trace import trace
 
 needs_8 = pytest.mark.skipif(len(jax.devices()) < 8,
                              reason="needs 8 virtual devices")
@@ -69,27 +69,26 @@ def test_graft_entry_compiles():
 
 
 @needs_8
-def test_fused_megakernel_ray_sharded(default_scene):
-    """The fused Pallas render kernel under shard_map matches the
-    single-device XLA pipeline (interpreter mode on the CPU mesh)."""
-    from gpu_raytracer_tpu.parallel.mesh import make_mesh
-    from gpu_raytracer_tpu.parallel.shard import render_frame_fused_multichip
-    from gpu_raytracer_tpu.engine.renderer import render_image
+def test_ray_sharded_tile_order_matches_render_chunk(default_scene):
+    """Tile-ordered rays (the renderer's feed order) sharded over the mesh
+    shade exactly as one single-device render_chunk call."""
+    from gpu_raytracer.engine.renderer import render_chunk
+    from gpu_raytracer.ops.packet_trace import tiled_pixel_order
 
-    W = H = 32
-    mesh = make_mesh(8)
-    fb = render_frame_fused_multichip(default_scene, W, H, mesh,
-                                      interpret=True)
-    ref = render_image(default_scene, W, H)
-    np.testing.assert_allclose(fb, ref, atol=2e-5)
+    W, H = 40, 24
+    px, py = tiled_pixel_order(W, H, tile=16)
+    px, py = jnp.asarray(px), jnp.asarray(py)
+    got = render_rays_sharded(default_scene, px, py, W, H, make_mesh(8))
+    want = render_chunk(default_scene, px, py, W, H)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-6)
 
 
 @needs_8
 def test_geometry_shards_bvh_courtyard():
-    """VERDICT r1 weak #5 done-condition: 8-device CPU mesh on the 100k
+    """8-device CPU mesh on the 100k
     courtyard, per-shard sub-BVH traversal matching single-device hits."""
-    from gpu_raytracer_tpu.parallel.shard import GeometryShards
-    from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene
+    from gpu_raytracer.parallel.shard import GeometryShards
+    from gpu_raytracer.utils.procgen import make_courtyard_scene
 
     scene = make_courtyard_scene(target_triangles=100_000, seed=0)
     mesh = make_mesh(8)
@@ -124,28 +123,27 @@ def test_geometry_shards_bvh_courtyard():
 
 
 @needs_8
-def test_geometry_sharded_pallas_path(default_scene, rng):
-    """VERDICT r2 weak #5: geometry sharding must ride the Pallas traversal
-    (per-shard BVH4 kernels, interpreted on the CPU mesh) with the
-    reduction-based ICI combine — hits must match the single-device trace."""
-    from gpu_raytracer_tpu.parallel.shard import GeometryShards
-    from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene
+def test_geometry_sharded_packet_rays(default_scene, rng):
+    """Geometry sharding with a packet-shaped ray count (whole 1024-ray
+    packets per shard) and the reduction-based combine — hits must match
+    the single-device trace."""
+    from gpu_raytracer.parallel.shard import GeometryShards
+    from gpu_raytracer.utils.procgen import make_courtyard_scene
 
     scene = make_courtyard_scene(target_triangles=6_000, seed=2)
     mesh = make_mesh(8)
     shards = GeometryShards(scene, 8)
-    assert shards.q_child.shape[0] == 8   # stacked BVH4 overlays exist
+    assert shards.tri_v0.shape[0] == 8    # stacked per-shard tables
 
     rng2 = np.random.default_rng(11)
-    m = 1024                              # packet-shaped -> Pallas path
+    m = 1024                              # one whole packet
     o = rng2.uniform(-30, 30, (m, 3)).astype(np.float32)
     tgt = rng2.uniform(-15, 15, (m, 3)).astype(np.float32)
     d = tgt - o
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o, d = jnp.asarray(o), jnp.asarray(d)
 
-    sharded = trace_geometry_sharded(scene, o, d, mesh, shards=shards,
-                                     use_pallas=True, interpret=True)
+    sharded = trace_geometry_sharded(scene, o, d, mesh, shards=shards)
     single = trace(scene, o, d)
     np.testing.assert_array_equal(np.asarray(sharded.hit),
                                   np.asarray(single.hit))
@@ -159,13 +157,13 @@ def test_geometry_sharded_pallas_path(default_scene, rng):
 
 @needs_8
 def test_geometry_shards_empty_chunks_inert(default_scene):
-    """ADVICE r3 (medium): with more shards than triangles, the empty Morton
+    """With more shards than triangles, the empty Morton
     chunks used to duplicate triangle 0 into every padded shard — the
     masked-psum combine then summed the winner's normal / material id / uv
     once PER DUPLICATE. Padded shards must be inert: aim rays straight at
     the real triangles and require exact attribute parity with the
     single-device trace."""
-    from gpu_raytracer_tpu.ops.trace import TRIANGLE
+    from gpu_raytracer.ops.trace import TRIANGLE
 
     mesh = make_mesh(8)          # 8 shards over the default scene's 2 tris
     cent = np.asarray([[0.0, 1.0 / 3.0, -2.0], [1.5, -1.0 / 6.0, -3.0]],
@@ -195,19 +193,19 @@ def test_geometry_shards_empty_chunks_inert(default_scene):
 
 @needs_8
 def test_geometry_ring_matches_single():
-    """VERDICT r3 #4: ring-rotated geometry+ray sharding — each chip
-    traverses N/8 rays per step, blocks ppermute around the ring carrying
+    """Ring-rotated geometry+ray sharding — each device traverses N/8 rays
+    per step, blocks ppermute around the ring carrying
     the running winner — must reproduce the single-device closest hit."""
-    from gpu_raytracer_tpu.parallel.shard import (GeometryShards,
+    from gpu_raytracer.parallel.shard import (GeometryShards,
                                                   trace_geometry_sharded_ring)
-    from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene
+    from gpu_raytracer.utils.procgen import make_courtyard_scene
 
     scene = make_courtyard_scene(target_triangles=6_000, seed=2)
     mesh = make_mesh(8)
     shards = GeometryShards(scene, 8)
 
     rng2 = np.random.default_rng(13)
-    m = 2048                              # 256 rays per chip block
+    m = 2048                              # 256 rays per device block
     o = rng2.uniform(-30, 30, (m, 3)).astype(np.float32)
     tgt = rng2.uniform(-15, 15, (m, 3)).astype(np.float32)
     d = tgt - o
@@ -240,27 +238,25 @@ def test_geometry_ring_matches_single():
 
 
 @needs_8
-def test_geometry_ring_pallas_interpreted():
-    """The ring path on the PALLAS per-shard traversal (interpreted on the
-    CPU mesh), packet-shaped blocks (8192 rays = 1024/chip)."""
-    from gpu_raytracer_tpu.parallel.shard import (GeometryShards,
+def test_geometry_ring_packet_blocks():
+    """The ring path with packet-shaped blocks (8192 rays = 1024/device)."""
+    from gpu_raytracer.parallel.shard import (GeometryShards,
                                                   trace_geometry_sharded_ring)
-    from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene
+    from gpu_raytracer.utils.procgen import make_courtyard_scene
 
     scene = make_courtyard_scene(target_triangles=3_000, seed=4)
     mesh = make_mesh(8)
     shards = GeometryShards(scene, 8)
 
     rng2 = np.random.default_rng(17)
-    m = 8192                              # 1024/chip -> Pallas packets
+    m = 8192                              # 1024 per device
     o = rng2.uniform(-25, 25, (m, 3)).astype(np.float32)
     tgt = rng2.uniform(-12, 12, (m, 3)).astype(np.float32)
     d = tgt - o
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o, d = jnp.asarray(o), jnp.asarray(d)
 
-    sharded = trace_geometry_sharded_ring(scene, o, d, mesh, shards=shards,
-                                          use_pallas=True, interpret=True)
+    sharded = trace_geometry_sharded_ring(scene, o, d, mesh, shards=shards)
     single = trace(scene, o, d)
     np.testing.assert_array_equal(np.asarray(sharded.hit),
                                   np.asarray(single.hit))
@@ -273,33 +269,28 @@ def test_geometry_ring_pallas_interpreted():
 
 
 @needs_8
-def test_fused_multichip_textured():
-    """The ray-sharded whole-frame path must also drive the two-phase
-    textured kernel (VERDICT r3 #4): 8-chip frame == single-device frame."""
-    from gpu_raytracer_tpu.parallel.shard import render_frame_fused_multichip
-    from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene
-    from gpu_raytracer_tpu import Renderer
+def test_ray_sharded_textured_matches_single():
+    """The ray-sharded whole-frame path on a textured scene: the 8-device
+    frame equals the single-device frame."""
+    from gpu_raytracer.utils.procgen import make_courtyard_scene
 
     scene = make_courtyard_scene(target_triangles=1500, seed=1,
                                  textured=True)
     W, H = 64, 32
-    fb = render_frame_fused_multichip(scene, W, H, make_mesh(8),
-                                      shadows=True, interpret=True)
-    r = Renderer(scene, W, H, shadows=True, interpret=True)
-    assert r._use_deferred()
-    single = r.render()
-    np.testing.assert_allclose(fb, single, atol=3e-4)
+    fb = render_frame_multichip(scene, W, H, make_mesh(8))
+    single = render_image(scene, W, H)
+    np.testing.assert_allclose(fb, single, atol=1e-5)
 
 
 @needs_8
 def test_pathtrace_step_sharded_matches_single(default_scene):
-    """VERDICT r4 #3: the PRODUCTION path-trace step (fused pool +
-    coherence sorts + QMC) under shard_map must reproduce the
+    """The PRODUCTION path-trace step (pool + coherence sorts + QMC)
+    under shard_map must reproduce the
     single-device PathTracer step — global QMC pixel identity makes
     every ray draw the identical lattice sample, so the 8-device
     radiance matches up to fp reassociation."""
-    from gpu_raytracer_tpu.engine.pathtracer import PathTracer
-    from gpu_raytracer_tpu.parallel.shard import pathtrace_step_sharded
+    from gpu_raytracer.engine.pathtracer import PathTracer
+    from gpu_raytracer.parallel.shard import pathtrace_step_sharded
 
     W = H = 32
     mesh = make_mesh(8)

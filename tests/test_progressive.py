@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from gpu_raytracer_tpu.engine.perf import (
+from gpu_raytracer.engine.perf import (
     PerformanceState, ProgressiveTiming, percentile,
 )
-from gpu_raytracer_tpu.engine.progressive import ProgressiveState, TileHelper
+from gpu_raytracer.engine.progressive import ProgressiveState, TileHelper
 
 
 def test_tile_count_ceil_div():

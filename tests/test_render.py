@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gpu_raytracer_tpu import render_image
-from gpu_raytracer_tpu.engine.renderer import render_chunk
-from gpu_raytracer_tpu.reference import cpu_tracer as oracle
-from gpu_raytracer_tpu.utils.image import rmse, to_u8, write_png, write_ppm
+from gpu_raytracer import render_image
+from gpu_raytracer.engine.renderer import render_chunk
+from gpu_raytracer.reference import cpu_tracer as oracle
+from gpu_raytracer.utils.image import rmse, to_u8, write_png, write_ppm
 
 
 def test_default_scene_matches_oracle(default_scene):
@@ -40,7 +40,7 @@ def test_shadows_darken(default_scene):
 
 
 def test_chunked_equals_whole(default_scene):
-    from gpu_raytracer_tpu import RaytracerConfig, Renderer
+    from gpu_raytracer import RaytracerConfig, Renderer
 
     W = H = 32
     whole = render_image(default_scene, W, H)
@@ -77,7 +77,7 @@ def test_srgb_transfer_curve():
     boundary (the reference's sRGB swapchain, renderer.rs:128-133): known
     values, continuity at the breakpoint, round-trip inverse, and that
     to_u8 defaults to the encode while srgb=False stays linear."""
-    from gpu_raytracer_tpu.utils.image import (linear_to_srgb, srgb_to_linear,
+    from gpu_raytracer.utils.image import (linear_to_srgb, srgb_to_linear,
                                                to_u8)
 
     # exact knots of the standard

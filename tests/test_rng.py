@@ -1,11 +1,11 @@
 """LCG parity (ops/rng.py) — bit-exact against the reference's SimpleRng
-semantics (/root/reference/shader/src/wavefront.rs:44-72): Numerical Recipes
+semantics (shader/src/wavefront.rs:44-72): Numerical Recipes
 constants, wrapping u32, (u >> 8) / 2^24 float mapping."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from gpu_raytracer_tpu.ops.rng import (
+from gpu_raytracer.ops.rng import (
     lcg_next, lcg_next_f32, lcg_next_f32_signed, lcg_pixel_seed)
 
 

@@ -3,7 +3,7 @@ per-pixel stratification, and end-to-end variance reduction through the
 PathTracer vs the independent threefry stream.
 
 The reference has no QMC analogue (its shaders draw from a per-pixel LCG,
-/root/reference/shader/src/wavefront.rs:44-72); this is a TPU-side
+shader/src/wavefront.rs:44-72); this is an
 quality-per-sample extension. Measured on the default scene (CPU, 32x32,
 depth 4, shadows, 4 seeds): MSE ratio qmc/rng = 0.50 / 0.46 / 0.48 at
 8 / 16 / 32 spp — QMC halves the error at equal cost.
@@ -13,7 +13,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gpu_raytracer_tpu.ops.sampler import (
+from gpu_raytracer.ops.sampler import (
     JITTER_TAG, N_DIMS, _alphas_q, qmc_jitter, qmc_uniforms)
 
 M32 = 0xFFFFFFFF
@@ -107,8 +107,8 @@ def test_qmc_pooled_step_equals_sequential():
     reproduce two sequential 1-spp steps to fp-order tolerance (with the
     independent stream these differ statistically — see
     test_multi_spp_pooled_step)."""
-    from gpu_raytracer_tpu import build_default_scene
-    from gpu_raytracer_tpu.engine.pathtracer import PathTracer
+    from gpu_raytracer import build_default_scene
+    from gpu_raytracer.engine.pathtracer import PathTracer
 
     sc = build_default_scene()
     a = PathTracer(sc, 16, 16, shadows=False, seed=5, samples_per_step=2)
@@ -124,7 +124,7 @@ def test_qmc_reduces_mse(default_scene):
     """End-to-end variance reduction: at 8 spp the QMC accumulation must
     land measurably closer to a converged reference than the independent
     stream (measured ratio ~0.5; asserted < 0.85 over 2 seeds)."""
-    from gpu_raytracer_tpu.engine.pathtracer import PathTracer
+    from gpu_raytracer.engine.pathtracer import PathTracer
 
     W = H = 16
     ref = np.zeros((H, W, 3), np.float32)
@@ -155,7 +155,7 @@ def test_qmc_checkpoint_resume_exact(default_scene, tmp_path):
     restored `samples` count, so checkpoint+resume reproduces the
     uninterrupted accumulation bit-for-bit (8 spp straight == 4 spp +
     checkpoint + 4 spp)."""
-    from gpu_raytracer_tpu.engine.pathtracer import PathTracer
+    from gpu_raytracer.engine.pathtracer import PathTracer
 
     p = str(tmp_path / "ckpt.npz")
     a = PathTracer(default_scene, 16, 16, shadows=False, seed=3)
@@ -172,8 +172,8 @@ def test_qmc_checkpoint_resume_exact(default_scene, tmp_path):
 
 
 def test_rng_sampler_still_available():
-    from gpu_raytracer_tpu import build_default_scene
-    from gpu_raytracer_tpu.engine.pathtracer import PathTracer
+    from gpu_raytracer import build_default_scene
+    from gpu_raytracer.engine.pathtracer import PathTracer
 
     sc = build_default_scene()
     r = PathTracer(sc, 8, 8, shadows=False, sampler="rng")

@@ -7,9 +7,9 @@ import urllib.request
 import numpy as np
 import pytest
 
-from gpu_raytracer_tpu import build_default_scene
-from gpu_raytracer_tpu.engine.viewer import Viewer
-from gpu_raytracer_tpu.engine.server import ViewerServer
+from gpu_raytracer import build_default_scene
+from gpu_raytracer.engine.viewer import Viewer
+from gpu_raytracer.engine.server import ViewerServer
 
 
 @pytest.fixture(scope="module")
@@ -69,7 +69,7 @@ def test_resize_endpoint(server):
 
 def test_second_stream_client_shares_one_render_loop(server):
     """Two /stream clients must NOT double-advance the viewer: both are fed
-    by the single producer loop (ADVICE r2)."""
+    by the single producer loop."""
     a = _get(server, "/stream")
     b = _get(server, "/stream")
     got_a = a.read(2048)

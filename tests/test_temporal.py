@@ -1,7 +1,7 @@
 """Temporal reprojection (engine/pathtracer._warp_history): camera moves
 warp the path-trace accumulation into the new view instead of restarting
 it. The reference restarts from scratch on every move (trigger_recompute);
-this is a TPU-side extension, so the tests pin its own contract:
+this is an extension, so the tests pin its own contract:
 identity-warp exactness, depth-validated history transport, disocclusion
 rejection, the clamp, and the blend arithmetic after new samples arrive.
 """
@@ -10,8 +10,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gpu_raytracer_tpu.engine.pathtracer import PathTracer
-from gpu_raytracer_tpu.models.camera import Camera
+from gpu_raytracer.engine.pathtracer import PathTracer
+from gpu_raytracer.models.camera import Camera
 
 
 def _pt(default_scene, spp=3, **kw):
@@ -106,7 +106,7 @@ def test_nontemporal_set_camera_still_resets(default_scene):
 
 
 def test_viewer_temporal_toggle(default_scene):
-    from gpu_raytracer_tpu.engine.viewer import Viewer
+    from gpu_raytracer.engine.viewer import Viewer
 
     v = Viewer(default_scene, 32, 32, shadows=False, verbose=False)
     assert v.temporal
@@ -125,7 +125,7 @@ def test_viewer_temporal_toggle(default_scene):
 
 
 def test_adaptive_temporal_warp(default_scene):
-    from gpu_raytracer_tpu.engine.adaptive import AdaptivePathTracer
+    from gpu_raytracer.engine.adaptive import AdaptivePathTracer
 
     pt = AdaptivePathTracer(default_scene, 128, 128, shadows=False,
                             tiles_per_step=4)
@@ -148,7 +148,7 @@ def test_cached_gbuffer_warp_matches_retrace(default_scene):
     retrace. All three variants must be bit-equal: the cached planes ARE
     the same trace's output, just routed differently."""
     import jax.numpy as jnp
-    from gpu_raytracer_tpu.models.camera import Camera
+    from gpu_raytracer.models.camera import Camera
 
     def two_warps(mode):
         pt = _pt(default_scene, spp=3)
@@ -182,7 +182,7 @@ def test_gbuffer_cache_matches_fresh_trace(default_scene):
     """gbuffer() after a temporal warp returns the warp's byproduct — it
     must equal a from-scratch _gbuffer trace for the same scene+camera."""
     import jax.numpy as jnp
-    from gpu_raytracer_tpu.models.camera import Camera
+    from gpu_raytracer.models.camera import Camera
 
     pt = _pt(default_scene, spp=2)
     cam = pt.scene.camera
@@ -201,7 +201,7 @@ def test_denoise_after_warp_matches_fresh_gbuffer(default_scene):
     tile-ordered G-buffer; the frame must be bit-equal to denoising with
     a from-scratch traced G-buffer (same scene+camera)."""
     import jax.numpy as jnp
-    from gpu_raytracer_tpu.models.camera import Camera
+    from gpu_raytracer.models.camera import Camera
 
     pt = _pt(default_scene, spp=2)
     cam = pt.scene.camera

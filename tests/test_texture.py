@@ -1,15 +1,15 @@
 """Texture atlas sampling tests (ops/texture.py).
 
 The reference binds texture data but never samples it (bindings are
-underscore-named, /root/reference/shader/src/lib.rs:34-35); here sampling is
+underscore-named, shader/src/lib.rs:34-35); here sampling is
 implemented for real, so these tests are oracle'd against plain NumPy."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gpu_raytracer_tpu.models.geometry import Textures
-from gpu_raytracer_tpu.ops.texture import (
+from gpu_raytracer.models.geometry import Textures
+from gpu_raytracer.ops.texture import (
     NO_TEXTURE, sample_texture, interpolate_uv, sphere_uv)
 
 
@@ -115,12 +115,12 @@ def test_sphere_uv_poles_and_seam():
 
 def test_textured_triangle_render():
     """End-to-end: a camera-facing textured quad shows the checkerboard."""
-    from gpu_raytracer_tpu.models.scene import prepare_scene
-    from gpu_raytracer_tpu.models.geometry import Mesh, Spheres
-    from gpu_raytracer_tpu.models.material import MaterialBuilder
-    from gpu_raytracer_tpu.models.light import LightBuilder
-    from gpu_raytracer_tpu.models.camera import Camera
-    from gpu_raytracer_tpu.engine.renderer import render_image
+    from gpu_raytracer.models.scene import prepare_scene
+    from gpu_raytracer.models.geometry import Mesh, Spheres
+    from gpu_raytracer.models.material import MaterialBuilder
+    from gpu_raytracer.models.light import LightBuilder
+    from gpu_raytracer.models.camera import Camera
+    from gpu_raytracer.engine.renderer import render_image
 
     mb = MaterialBuilder()
     ti = np.full(8, 0xFFFFFFFF, np.uint32)

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from gpu_raytracer_tpu import RaytracerConfig
-from gpu_raytracer_tpu.engine.viewer import Viewer
+from gpu_raytracer import RaytracerConfig
+from gpu_raytracer.engine.viewer import Viewer
 
 
 def _viewer(scene, w=64, h=48):
@@ -77,8 +77,8 @@ def test_edge_tiles_clamp(default_scene):
 def test_viewer_pathtrace_toggle():
     """'p' switches the event loop to progressive path tracing; camera
     moves restart accumulation; 'p' again returns to Whitted."""
-    from gpu_raytracer_tpu import build_default_scene
-    from gpu_raytracer_tpu.engine.viewer import Viewer
+    from gpu_raytracer import build_default_scene
+    from gpu_raytracer.engine.viewer import Viewer
 
     v = Viewer(build_default_scene(), 32, 32, shadows=False, verbose=False)
     v.handle_key("p")
@@ -89,7 +89,7 @@ def test_viewer_pathtrace_toggle():
     fb = v.framebuffer
     assert np.isfinite(fb).all() and fb.shape == (32, 32, 3)
     v.handle_key("w")              # move -> warp deferred to the next frame
-    v.run_compute()                # fused/composed moving frame
+    v.run_compute()                # one-dispatch/composed moving frame
     assert v._pt.samples == 0      # history folded into per-pixel counts
     assert v._pt._count_base is not None
     v.handle_key("p")
@@ -101,8 +101,8 @@ def test_viewer_denoised_pathtrace_preview():
     """While the accumulation is young the path-trace frame is the
     à-trous reconstruction; past denoise_until (or with 'n' toggled off)
     it is the raw accumulated mean."""
-    from gpu_raytracer_tpu import build_default_scene
-    from gpu_raytracer_tpu.engine.viewer import Viewer
+    from gpu_raytracer import build_default_scene
+    from gpu_raytracer.engine.viewer import Viewer
 
     v = Viewer(build_default_scene(), 32, 32, shadows=False, verbose=False)
     v.handle_key("p")
@@ -176,39 +176,34 @@ def test_viewer_resize(default_scene):
 
 
 def test_many_light_viewer_temporal_refinement():
-    """VERDICT r3 weak #7: a stationary >MAX_LIGHTS Viewer must not carry a
-    frozen single-sample-NEE noise pattern. Idle frames draw fresh light
-    choices (Renderer.light_frame advances per frame) and average into the
-    device framebuffer, converging toward the exact per-light loop (the XLA
-    pipeline)."""
+    """A stationary many-light (64 > 16) Viewer shows the exact per-light
+    sum from its first frame: the main path loops over every light, so
+    there is no sampled-light noise to refine. Idle frames leave the frame
+    alone; a camera move redraws."""
     import jax.numpy as jnp
-    from gpu_raytracer_tpu.engine.renderer import render_chunk
-    from gpu_raytracer_tpu.ops.pallas.render import MAX_LIGHTS
-    from gpu_raytracer_tpu.utils.procgen import make_courtyard_scene
+    from gpu_raytracer.engine.renderer import render_chunk
+    from gpu_raytracer.utils.procgen import make_courtyard_scene
 
     scene = make_courtyard_scene(1500, seed=3, lights=64)
-    assert scene.lights.count > MAX_LIGHTS
+    assert scene.lights.count > 16
     W, H = 64, 32
-    v = Viewer(scene, W, H, verbose=False, interpret=True)
-    assert v._whole_frame            # stays on the fused path (interpreted)
-    assert v.run_compute() == 1
+    v = Viewer(scene, W, H, verbose=False)
+    assert v.run_compute() == 1      # one 128px tile covers the frame
     fb1 = v.framebuffer.copy()
 
     px, py, _ = v.renderer._pixel_order()
     ref = v.renderer._to_image(np.asarray(render_chunk(
         scene, jnp.asarray(px), jnp.asarray(py), W, H, shadows=False,
         use_bvh=True, leaf_size=8)))
+    np.testing.assert_allclose(fb1, ref, atol=1e-6)
 
-    for _ in range(7):
-        assert v.run_compute() == 0  # idle frames refine, don't redraw
-    assert v._nee_samples == 8
-    err1 = np.abs(fb1 - ref).mean()
-    err8 = np.abs(v.framebuffer - ref).mean()
-    assert err8 < err1 * 0.6         # ~1/sqrt(8) expected; 0.6 is lenient
-    # a camera move resets the accumulation
+    for _ in range(3):
+        assert v.run_compute() == 0  # idle frames neither redraw nor drift
+    np.testing.assert_array_equal(v.framebuffer, fb1)
+    # a camera move redraws the whole frame
     v.handle_key("w")
-    v.run_compute()
-    assert v._nee_samples == 1
+    assert v.run_compute() == 1
+    assert np.abs(v.framebuffer - fb1).max() > 0.0
 
 
 def test_framebuffer_u8_matches_quantised_f32(default_scene):
@@ -218,7 +213,7 @@ def test_framebuffer_u8_matches_quantised_f32(default_scene):
     (utils/image.py header); device and host encodes may round a value
     sitting exactly on a u8 boundary differently (XLA vs numpy power), so
     allow <=1 count."""
-    from gpu_raytracer_tpu.utils.image import to_u8
+    from gpu_raytracer.utils.image import to_u8
 
     v = Viewer(default_scene, 32, 32, shadows=False, verbose=False)
     v.run_compute()                                   # whitted frame
@@ -258,7 +253,7 @@ def test_pathtrace_fly_through_keeps_history(default_scene):
 
 
 def test_cli_fly_pathtrace(tmp_path, default_scene):
-    from gpu_raytracer_tpu.__main__ import main
+    from gpu_raytracer.__main__ import main
 
     out = str(tmp_path / "frames")
     main(["fly", "--demo", "--pathtrace", "--width", "32", "--height", "32",

@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gpu_raytracer_tpu import build_default_scene
-from gpu_raytracer_tpu.engine.pathtracer import PathTracer
-from gpu_raytracer_tpu.ops.rng import lcg_next_f32, lcg_pixel_seed
-from gpu_raytracer_tpu.ops.wavefront import (
+from gpu_raytracer import build_default_scene
+from gpu_raytracer.engine.pathtracer import PathTracer
+from gpu_raytracer.ops.rng import lcg_next_f32, lcg_pixel_seed
+from gpu_raytracer.ops.wavefront import (
     SKY_WAVEFRONT, camera_wavefront_rays, path_trace_pool,
     wavefront_single_bounce,
 )
@@ -43,10 +43,10 @@ def test_single_bounce_reference_semantics(default_scene):
     assert c[0] > c[2]
 
     # hits must equal the legacy shading path exactly (same formulas)
-    from gpu_raytracer_tpu.engine.renderer import render_chunk
+    from gpu_raytracer.engine.renderer import render_chunk
     legacy = np.asarray(render_chunk(default_scene, px, py, W, H))
-    from gpu_raytracer_tpu.ops.camera_rays import generate_rays
-    from gpu_raytracer_tpu.ops.trace import trace
+    from gpu_raytracer.ops.camera_rays import generate_rays
+    from gpu_raytracer.ops.trace import trace
     o, d = generate_rays(default_scene.camera, W, H, px, py)
     hits = np.asarray(trace(default_scene, o, d).hit)
     np.testing.assert_allclose(color[hits], legacy[hits], atol=1e-6)
@@ -100,7 +100,7 @@ def test_depth_zero_equals_single_bounce_plus_continuation_energy(default_scene)
 
 
 def test_pathtracer_accumulation(default_scene):
-    from gpu_raytracer_tpu import RaytracerConfig
+    from gpu_raytracer import RaytracerConfig
 
     pt = PathTracer(default_scene, 16, 16,
                     config=RaytracerConfig(ray_batch_size=256, max_bounce_depth=2),
@@ -119,7 +119,7 @@ def test_pathtracer_accumulation(default_scene):
 
 
 def test_spectral_mode_runs(default_scene):
-    from gpu_raytracer_tpu import RaytracerConfig
+    from gpu_raytracer import RaytracerConfig
 
     pt = PathTracer(default_scene, 8, 8,
                     config=RaytracerConfig(ray_batch_size=64, max_bounce_depth=2),
@@ -133,7 +133,7 @@ def test_pathtracer_counters_real_device_counts(default_scene):
     """WavefrontCounters populated with REAL per-depth actives (the
     reference fills them with a simulated 0.7^depth decay,
     src/compute.rs:467-474)."""
-    from gpu_raytracer_tpu.engine.pathtracer import PathTracer
+    from gpu_raytracer.engine.pathtracer import PathTracer
 
     pt = PathTracer(default_scene, 32, 32, spectral=False, shadows=False)
     pt.step()
@@ -147,7 +147,7 @@ def test_pathtracer_counters_real_device_counts(default_scene):
 def test_multi_spp_pooled_step(default_scene):
     """samples_per_step=2 traces both samples in one pooled wavefront; the
     accumulated mean must agree statistically with two 1-spp steps."""
-    from gpu_raytracer_tpu.engine.pathtracer import PathTracer
+    from gpu_raytracer.engine.pathtracer import PathTracer
 
     a = PathTracer(default_scene, 32, 32, shadows=False, seed=5,
                    samples_per_step=2)
@@ -172,9 +172,9 @@ def test_permute_pool_packed_field_roundtrip(default_scene):
     import jax
     import numpy as np
     import jax.numpy as jnp
-    from gpu_raytracer_tpu.ops.wavefront import (
+    from gpu_raytracer.ops.wavefront import (
         camera_wavefront_rays, _permute_pool, RGB_CHANNEL)
-    from gpu_raytracer_tpu.utils.pytree import replace
+    from gpu_raytracer.utils.pytree import replace
 
     N = 512
     rng = np.random.default_rng(5)

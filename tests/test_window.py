@@ -11,9 +11,9 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-from gpu_raytracer_tpu import RaytracerConfig
-from gpu_raytracer_tpu.engine.viewer import Viewer
-from gpu_raytracer_tpu.engine.window import (NativeWindow, _ppm_bytes,
+from gpu_raytracer import RaytracerConfig
+from gpu_raytracer.engine.viewer import Viewer
+from gpu_raytracer.engine.window import (NativeWindow, _ppm_bytes,
                                              window_available)
 
 

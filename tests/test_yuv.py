@@ -4,9 +4,9 @@ present path."""
 import numpy as np
 import jax.numpy as jnp
 
-from gpu_raytracer_tpu import build_default_scene
-from gpu_raytracer_tpu.utils.image import linear_to_srgb
-from gpu_raytracer_tpu.utils.yuv import decode_yuv420, encode_yuv420
+from gpu_raytracer import build_default_scene
+from gpu_raytracer.utils.image import linear_to_srgb
+from gpu_raytracer.utils.yuv import decode_yuv420, encode_yuv420
 
 
 def test_round_trip_close_on_smooth_content():
@@ -41,7 +41,7 @@ def test_viewer_packed_present_matches_u8_present():
     """present_frame_packed on a device path-trace frame decodes to
     (approximately) the same display image as the RGB u8 present; both
     ride materialize_frame."""
-    from gpu_raytracer_tpu.engine.viewer import Viewer
+    from gpu_raytracer.engine.viewer import Viewer
 
     v = Viewer(build_default_scene(), 64, 64, shadows=False, verbose=False)
     v.handle_key("p")
